@@ -1,6 +1,6 @@
 """Drop-in import-compatibility package for upstream ``attpc_engine``.
 
-Lets reference user scripts run unmodified against this TPU-native engine:
+Lets reference user scripts run unmodified against this batched engine:
 every public name the upstream package exports (reference
 ``src/attpc_engine/__init__.py:1-3`` and the ``kinematics``/``detector``
 subpackage ``__init__``s) resolves here to the same-named API of

@@ -1,4 +1,4 @@
-"""attpc_engine_tpu: a TPU-native Monte-Carlo simulation engine for the AT-TPC.
+"""attpc_engine_tpu: a batched JAX Monte-Carlo simulation engine for the AT-TPC.
 
 A ground-up JAX/XLA/Pallas re-design of the capability set of
 ``attpc_engine`` (reference engine studied at /root/reference): a two-stage
@@ -8,12 +8,12 @@ Spyral-compatible point-cloud HDF5 files.
 
 Everything event-scoped is batched: events live in event-major device arrays
 and the full physics runs as a handful of jitted XLA programs, optionally
-sharded over a TPU mesh.
+sharded over a mesh of GPUs.
 
 Note: this package enables JAX 64-bit mode at import. Relativistic
 kinematics at MeV precision against ~GeV masses requires f64 (verified:
 catastrophic cancellation in f32 produces keV-scale errors). The detector
-hot path explicitly pins float32 so TPU performance is unaffected.
+hot path explicitly pins float32.
 """
 
 import jax

@@ -5,7 +5,7 @@ Matches the reference's theoretical GET chip response
 ``tbs = linspace(0, 512, 512)`` sampling quirk (response.py:26 — note this
 is NOT 0..511; kept for output parity).
 
-TPU-first: ``apply_response_batch`` evaluates amplitude/integral for a whole
+Batched: ``apply_response_batch`` evaluates amplitude/integral for a whole
 batch of cloud points as one [n, 512] elementwise program instead of a
 per-point Python/numba loop (reference response.py:35-57).
 """

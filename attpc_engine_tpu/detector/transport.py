@@ -1,6 +1,6 @@
 """Charged-particle transport through the gas volume.
 
-TPU-native replacement for the reference's trajectory solver
+Batched replacement for the reference's trajectory solver
 (/root/reference/src/attpc_engine/detector/solver.py:19-305): the reference
 integrates one nucleus at a time with scipy's implicit Radau solver, calling
 the pycatima C++ stopping library in a Python RHS on every evaluation — the

@@ -10,7 +10,7 @@ Two schemas are supported:
   vertex_x/y/z. Files written this way are readable by the reference
   detector stage and converter, and vice versa.
 
-- ``"columnar"`` (default): batched layout for TPU-scale event counts —
+- ``"columnar"`` (default): batched layout for production event counts —
   ``/data/vertices`` ``[n, 3]`` and ``/data/momenta`` ``[n, N, 4]``
   (float64, chunked, gzip-free for write speed), same ``/data`` attrs.
   Writing 1M events creates 2 datasets instead of 1M.
@@ -23,10 +23,9 @@ from __future__ import annotations
 
 from pathlib import Path
 
-import h5py as h5
 import numpy as np
 
-__all__ = ["KinematicsWriter", "KinematicsReader", "CHUNK_SIZE"]
+__all__ = ["KinematicsWriter", "KinematicsReader", "KinematicsArrays", "CHUNK_SIZE"]
 
 CHUNK_SIZE: int = 1_000_000
 
@@ -49,7 +48,9 @@ class KinematicsWriter:
         self.n_events = n_events
         self.n_nuclei = len(proton_numbers)
         self._written = 0
-        self._file = h5.File(self.path, "w")
+        import h5py
+
+        self._file = h5py.File(self.path, "w")
         self._data = self._file.create_group("data")
         self._data.attrs["n_events"] = n_events
         self._data.attrs["proton_numbers"] = np.asarray(proton_numbers, dtype=np.int64)
@@ -115,7 +116,9 @@ class KinematicsReader:
 
     def __init__(self, path: Path | str):
         self.path = Path(path)
-        self._file = h5.File(self.path, "r")
+        import h5py
+
+        self._file = h5py.File(self.path, "r")
         self._data = self._file["data"]
         self.n_events = int(self._data.attrs["n_events"])
         self.proton_numbers = np.asarray(self._data.attrs["proton_numbers"])
@@ -153,3 +156,29 @@ class KinematicsReader:
 
     def close(self) -> None:
         self._file.close()
+
+
+class KinematicsArrays:
+    """In-memory kinematics with the ``KinematicsReader`` interface, e.g.
+    the output of ``KinematicsPipeline.run_batch``: ``run_simulation``
+    accepts one in place of a file path, so the detector stage runs where
+    no HDF5 library is installed.
+
+    vertices [n, 3] and momenta [n, N, 4] float64; proton_numbers,
+    mass_numbers [N].
+    """
+
+    def __init__(self, vertices, momenta, proton_numbers, mass_numbers):
+        self.vertices = np.asarray(vertices, dtype=np.float64)
+        self.momenta = np.asarray(momenta, dtype=np.float64)
+        self.proton_numbers = np.asarray(proton_numbers)
+        self.mass_numbers = np.asarray(mass_numbers)
+        self.n_events = len(self.vertices)
+        self.n_nuclei = len(self.proton_numbers)
+
+    def read_range(self, start: int, stop: int) -> tuple[np.ndarray, np.ndarray]:
+        """Events [start, stop) -> (vertices [b,3], momenta [b,N,4])."""
+        return self.vertices[start:stop], self.momenta[start:stop]
+
+    def close(self) -> None:
+        pass

@@ -61,7 +61,7 @@ class PolarArbitrary:
     angle with the given probabilities, add U[0,1) * bin_width.
 
     Unlike the reference (which warns of a runtime penalty for this class),
-    the batched sampler is a single inverse-CDF gather — no penalty on TPU.
+    the batched sampler is a single inverse-CDF gather — no penalty on device.
     """
 
     def __init__(

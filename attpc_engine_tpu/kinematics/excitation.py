@@ -4,7 +4,7 @@ Covers the reference's ``kinematics/excitation.py``
 (/root/reference/src/attpc_engine/kinematics/excitation.py:6-188): a
 Protocol plus Gaussian, Uniform and relativistic Breit-Wigner samplers.
 
-TPU-first design: every distribution provides ``sample_jax(key, shape)``
+Batched design: every distribution provides ``sample_jax(key, shape)``
 returning a device array — this is the path used by the batched pipeline —
 in addition to the reference-compatible scalar ``sample(rng)``.
 

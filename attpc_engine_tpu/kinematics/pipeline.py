@@ -2,7 +2,7 @@
 
 Covers the reference's ``kinematics/pipeline.py``
 (/root/reference/src/attpc_engine/kinematics/pipeline.py:79-495) with a
-TPU-first architecture. The reference samples one event at a time in a
+batched architecture. The reference samples one event at a time in a
 Python ``while`` loop with rejection-resampling; here the *entire batch* of
 events is sampled inside one jitted XLA program:
 
@@ -467,7 +467,7 @@ def run_kinematics_pipeline(
 ) -> None:
     """Run a pipeline for ``n_events`` and write the result to HDF5.
 
-    Batched TPU analog of the reference driver (pipeline.py:429-495):
+    Batched analog of the reference driver (pipeline.py:429-495):
     events are sampled in jitted device batches and written per batch.
     When more than one device is visible (and the batch divides evenly),
     each batch is event-sharded across the device mesh; physics is

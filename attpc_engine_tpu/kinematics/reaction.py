@@ -2,7 +2,7 @@
 
 Covers the capability of the reference's ``kinematics/reaction.py``
 (/root/reference/src/attpc_engine/kinematics/reaction.py:8-303) with a
-TPU-first architecture: the physics lives in *batched, jittable* pure
+batched architecture: the physics lives in *batched, jittable* pure
 functions over ``[n]``-shaped phase-space parameter arrays; the ``Reaction``
 and ``Decay`` classes are thin host-side metadata holders (species,
 validation, symbols) that also offer the reference's scalar ``calculate``

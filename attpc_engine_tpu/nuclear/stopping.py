@@ -7,7 +7,7 @@ side on every integrator step
 ``get_energy_loss`` per sampled event
 (/root/reference/src/attpc_engine/kinematics/pipeline.py:256-263).
 
-TPU-first architecture: stopping power is *never* evaluated pointwise in the
+Batched architecture: stopping power is *never* evaluated pointwise in the
 hot path. This module generates dense log-spaced dE/dx and range tables per
 (projectile, material) once on the host; the device integrator does a
 single ``jnp.interp`` gather per step.

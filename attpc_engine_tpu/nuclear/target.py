@@ -11,7 +11,7 @@ detector/solver.py:6). API surface kept compatible:
 - ``load_target(path, nuclear_map)`` reading the spyral-utils JSON schema
   ``{"compound": [[Z, A, S], ...], "pressure(Torr)": P}``.
 
-TPU-first: every per-projectile stopping curve is materialized once as a
+Batched: every per-projectile stopping curve is materialized once as a
 log-spaced table; ``dedx_interp_arrays`` exposes the arrays the detector
 integrator gathers from on device. All pointwise evaluation here is
 host-side convenience built on the same tables, so device and host physics

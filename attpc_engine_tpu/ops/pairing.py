@@ -2,7 +2,7 @@
 
 The reference uses Szudzik pairing as the hash-map key for its numba-Dict
 charge accumulation (/root/reference/src/attpc_engine/detector/pairing.py:6-55).
-The TPU engine's merge path packs keys as ``pad * 512 + tb`` instead (dense,
+This engine's merge path packs keys as ``pad * 512 + tb`` instead (dense,
 sort-friendly), but the Szudzik functions are provided — vectorized — for
 API parity and for users who build custom accumulation schemes.
 """

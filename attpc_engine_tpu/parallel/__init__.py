@@ -1,4 +1,4 @@
-"""Device-mesh parallelism (event sharding over TPU meshes)."""
+"""Device-mesh parallelism (event sharding over a mesh of GPUs)."""
 
 from .mesh import distributed_init, event_mesh, event_sharding, shard_events
 from .multihost import run_simulation_multihost

@@ -1,8 +1,8 @@
-"""Event sharding across a TPU device mesh.
+"""Event sharding across a device mesh (the GPUs of a host).
 
 The reference engine is single-process/serial (verified: no multiprocessing,
 threading, or MPI anywhere in /root/reference/src — SURVEY.md section 2.3);
-its workload is embarrassingly parallel over events. The TPU-native
+its workload is embarrassingly parallel over events. The engine's
 parallelism is therefore data parallelism over the event batch:
 
 - a 1-D mesh over all devices with axis name "events",
@@ -13,8 +13,10 @@ parallelism is therefore data parallelism over the event batch:
 - per-event RNG comes from fold_in(key, event_index), so results are
   independent of the device layout.
 
-Multi-host scaling uses ``jax.distributed.initialize`` + the same sharding
-over the global mesh (ICI within a slice, DCN across slices).
+The cards of one host are joined all to all (NVLink on an H100 host), so
+the mesh follows the algorithm alone. Multi-host runs use
+``parallel/multihost.py``: one process per host, each over its own local
+devices.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Multi-host production driver: one detector run spread over a TPU pod.
+"""Multi-host production driver: one detector run spread over several hosts.
 
 The reference engine is single-process and serial (no analog:
 /root/reference/src has no multiprocessing/MPI — SURVEY.md section 2.3).
@@ -23,8 +23,8 @@ XLA-partitioned conversion tail reassociates f32 reductions, so rows
 match to float tolerance and an ADC-threshold-straddling row can flip —
 the test's rtol=2e-5/atol=2e-3 comparison is the honest contract.
 
-Derived per-chip need for the 16,667 ev/s north star on a v5e-8:
-~2,084 ev/s device-side (docs/roofline.md) + 2-4 writer shards/host.
+This driver has run only on virtual CPU devices (tests/test_multihost.py),
+not yet on GPUs.
 """
 
 from __future__ import annotations
@@ -107,7 +107,7 @@ def run_simulation_multihost(
     Call from every process of a ``jax.distributed``-initialized job (or
     pass ``process_id``/``num_processes`` explicitly to shard across
     independent processes without a coordinator — e.g. separate
-    single-host TPU VMs over a shared filesystem). Every process must
+    single-host machines over a shared filesystem). Every process must
     pass the SAME ``seed``: all random streams key off
     ``fold_in(seed, global_event_id)``, so the union of the processes'
     outputs is bit-identical to a single-process run.

@@ -2,7 +2,7 @@
 
 The reference engine's only instrumentation is tqdm progress bars
 (/root/reference/src/attpc_engine/kinematics/pipeline.py:477-478). Here we
-add what a production TPU engine needs: ``jax.profiler`` trace capture
+add what a production engine needs: ``jax.profiler`` trace capture
 (viewable in TensorBoard/Perfetto) and lightweight per-phase wall timing
 that the drivers aggregate and report.
 """

@@ -2,7 +2,7 @@
 
 Simulates 16C(d,d')16C* inverse-kinematics elastic/inelastic scattering at
 184.131 MeV in a D2 gas target, the workflow of the upstream engine's
-getting-started guide, at TPU batch scale.
+getting-started guide, at batched-engine scale.
 """
 
 import os
@@ -48,7 +48,7 @@ pipeline = KinematicsPipeline(
 if __name__ == "__main__":
     # schema="reference" writes the upstream per-event dataset layout, so a
     # reference attpc_engine install (and its convert-kinematics tooling)
-    # can read this file directly. For TPU-scale runs that only this engine
+    # can read this file directly. For large runs that only this engine
     # consumes, schema="columnar" (the faster batched layout) is better.
     run_kinematics_pipeline(
         pipeline, nevents, output_path, seed=1234, schema="reference"

@@ -274,7 +274,7 @@ def test_batched_events_deterministic():
 
 
 def test_simulate_cache_key_is_content_based():
-    """Regression (round-2 VERDICT item 8): the simulate() memo must key on
+    """Regression: the simulate() memo must key on
     config CONTENT, not id() — a new Config allocated at a recycled address
     with different physics must not hit a stale cached simulator."""
     from attpc_engine_tpu.detector.simulator import (
@@ -322,7 +322,7 @@ def test_simulate_cache_key_is_content_based():
     )
     assert _config_fingerprint(cfg_a) == _config_fingerprint(cfg_a2)
 
-    # in-place mutation is picked up (round-2 ADVICE item 3)
+    # in-place mutation is picked up
     cfg_a2.det_params.diffusion = 0.5
     assert _config_fingerprint(cfg_a) != _config_fingerprint(cfg_a2)
 
@@ -383,20 +383,19 @@ def test_get_response_independent_formula():
 
 
 def test_fused_default_gates_off_cpu(monkeypatch):
-    """EngineParams(pallas_sort="fused") must behave exactly like the lax
-    default away from a single-chip TPU: the auto-flip of the round-4
-    defaults must never drag CPU runs (or >1-device meshes) through the
-    Pallas interpreter. Proven by making every sort kernel raise."""
+    """The default EngineParams (pallas_transport="auto") must keep the
+    scan integrator off a GPU backend: the engine never drags CPU runs
+    through the Pallas interpreter. Proven by making both kernel entry
+    points raise, then matching an explicit pallas_transport=False run."""
     import dataclasses
 
-    from attpc_engine_tpu.detector import sort_pallas
+    from attpc_engine_tpu.detector import transport_pallas
 
     def _boom(*a, **k):  # pragma: no cover - failure path
-        raise AssertionError("Pallas sort kernel invoked on CPU backend")
+        raise AssertionError("Pallas transport kernel invoked on CPU backend")
 
-    for name in ("sort_pairs_pallas", "sort_i64_pallas",
-                 "merge_runs_fused_pallas"):
-        monkeypatch.setattr(sort_pallas, name, _boom)
+    for name in ("integrate_tracks_pallas", "integrate_tracks_pallas_chunked"):
+        monkeypatch.setattr(transport_pallas, name, _boom)
 
     config = Config(detector, electronics, pads)
     zp, ap = np.array([1, 1, 1, 1]), np.array([1, 1, 1, 1])
@@ -408,37 +407,35 @@ def test_fused_default_gates_off_cpu(monkeypatch):
     momenta[:, 2, 3] = 938.272 + 5.0
     vertices = np.tile(np.array([0.0, 0.0, 0.5]), (2, 1))
 
-    base = DetectorSimulator(config, zp, ap, indices=[2],
-                             engine=fast_engine)
-    out_base = base.simulate_batch(jax.random.PRNGKey(3), vertices, momenta)
-
-    fused = DetectorSimulator(
+    scan = DetectorSimulator(
         config, zp, ap, indices=[2],
-        engine=dataclasses.replace(fast_engine, pallas_sort="fused"),
+        engine=dataclasses.replace(fast_engine, pallas_transport=False),
     )
-    assert fused._pallas_enabled("fused") is False
-    out_f = fused.simulate_batch(jax.random.PRNGKey(3), vertices, momenta)
+    out_scan = scan.simulate_batch(jax.random.PRNGKey(3), vertices, momenta)
+
+    auto = DetectorSimulator(config, zp, ap, indices=[2], engine=fast_engine)
+    assert fast_engine.pallas_transport == "auto"
+    assert auto._use_transport_kernel() is False
+    out_auto = auto.simulate_batch(jax.random.PRNGKey(3), vertices, momenta)
     for name in ("charges", "pads", "tbs_i", "labels"):
         np.testing.assert_array_equal(
-            np.asarray(out_base[name]), np.asarray(out_f[name]), err_msg=name
+            np.asarray(out_scan[name]), np.asarray(out_auto[name]),
+            err_msg=name,
         )
 
 
 def test_engine_params_rejects_unknown_flag_strings():
-    """A typo'd kernel-flag string must raise, not silently downgrade to
-    the plain kernel path (ADVICE r4)."""
+    """A typo'd kernel-flag string must raise, not silently fall back to
+    one of the two transport paths; the removed kernel knobs are gone."""
     import pytest
 
     from attpc_engine_tpu.detector import EngineParams
 
-    # every documented value constructs
-    for v in (True, False, "auto", "fused", "transpose", "fused_transpose"):
-        EngineParams(pallas_sort=v)
     for v in (True, False, "auto"):
-        EngineParams(pallas_transport=v, pallas_lookup=v, lookup_two_stage=v)
-    with pytest.raises(ValueError, match="pallas_sort='Fused'"):
-        EngineParams(pallas_sort="Fused")
-    with pytest.raises(ValueError, match="lookup_two_stage"):
-        EngineParams(lookup_two_stage="fused")
-    with pytest.raises(ValueError, match="pallas_transport"):
-        EngineParams(pallas_transport="on")
+        EngineParams(pallas_transport=v)
+    for bad in ("on", "Auto", "fused"):
+        with pytest.raises(ValueError, match="pallas_transport"):
+            EngineParams(pallas_transport=bad)
+    for removed in ("pallas_lookup", "pallas_sort", "lookup_two_stage"):
+        with pytest.raises(TypeError):
+            EngineParams(**{removed: True})

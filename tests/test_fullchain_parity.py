@@ -7,7 +7,7 @@ electron generation (solver.py:308-347), mesh diffusion transport with the
 per-pixel int() truncation and dict-overwrite labels
 (transporter.py:124-318), TB wiggle + bounds (simulator.py:104-113) and the
 GET response/ADC threshold (writer.py:61-112, response.py:35-56) — and
-compares the engine's batched TPU-native chain against it
+compares the engine's batched chain against it
 DISTRIBUTIONALLY on a handful of 12C(d,p) events, with diffusion on and
 off.
 

@@ -1,10 +1,10 @@
-"""Multi-device soak (VERDICT r3 task 6): 512 events through the FULL
+"""Multi-device soak: 512 events through the FULL
 production path — run_simulation over the 8-virtual-device mesh, the
 striped out-of-process writer fleet (n_shards=2), file rotation across
 shard boundaries, and a forced overflow-retry under sharding — asserting
 value-identity with the unsharded single-device run.
 
-This is the scale guard for the v5e-8 story (docs/roofline.md): budgets
+This is the scale guard for the multi-GPU path: budgets
 retune after the first batch, files rotate mid-run, and the doubling
 retry fires while batches are event-sharded.
 """

@@ -2,7 +2,7 @@
 
 The reference is single-process (SURVEY.md section 2.3); this engine's
 distributed slot is ``jax.distributed.initialize`` + the same event-axis
-sharding over the GLOBAL mesh (parallel/mesh.py:16-17). A TPU pod is not
+sharding over the GLOBAL mesh. Several hosts are not
 available here, so this test exercises the real multi-controller code path
 the way JAX upstream does: two OS processes, each owning 2 virtual CPU
 devices, form one 4-device global mesh over a localhost coordinator. The
@@ -258,7 +258,7 @@ def test_multihost_production_driver(tmp_path):
 def test_multihost_explicit_ids_without_coordinator(tmp_path):
     """``run_simulation_multihost`` with explicit process_id/num_processes
     shards across independent processes with no jax.distributed coordinator
-    (e.g. separate single-host TPU VMs over a shared filesystem). Running
+    (e.g. separate single-host machines over a shared filesystem). Running
     all three slices sequentially in this one process reproduces the
     single-process run bit-exactly (same device layout, grid-independent
     RNG)."""

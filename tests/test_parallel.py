@@ -140,11 +140,11 @@ def test_sharded_matches_single_device():
         )  # same total integral
 
 
-def test_pallas_kernels_inside_shard_map():
-    """The shard_map path lifts the multi-device Pallas gate: each shard is
-    a single device, so the kernels run per-shard (pallas_call itself
-    cannot partition). Forced on here (interpret mode on CPU), the sharded
-    program must match the same-flags unsharded program bit-for-bit."""
+def test_pallas_kernels_inside_shard_map(interpret_kernels):
+    """The shard_map path runs the transport kernel per shard (each shard
+    is a single device; pallas_call itself cannot partition). Forced on
+    here (interpreted on the CPU), the sharded program must match the
+    same-flags unsharded program bit-for-bit."""
     import dataclasses
     import sys
     from pathlib import Path
@@ -164,8 +164,6 @@ def test_pallas_kernels_inside_shard_map():
         out_budget=4096,
         n_time_steps=250,
         pallas_transport=True,
-        pallas_lookup=True,
-        pallas_sort=True,
     )
     zp = pipeline.get_proton_numbers()
     ap = pipeline.get_mass_numbers()
@@ -179,8 +177,8 @@ def test_pallas_kernels_inside_shard_map():
     sharded = DetectorSimulator(sim0.config, zp, ap, engine=engine,
                                 mesh=mesh)
     # on CPU the "auto" gate stays off, but explicit True must reach the
-    # kernels inside the shard
-    assert sharded._pallas_enabled(True) is True
+    # kernel inside the shard
+    assert sharded._use_transport_kernel() is True
     out_shard = sharded.simulate_batch(
         jax.random.PRNGKey(7), vertices, momenta, assemble=False
     )

@@ -1,7 +1,7 @@
 """Bragg-region stopping sensitivity: the harness measures real physics.
 
-The sub-1 MeV/u stopping model has no external anchor in-repo (VERDICT
-r3); tools/sensitivity_stopping.py bounds what a model error there does
+The sub-1 MeV/u stopping model has no external anchor in-repo;
+tools/sensitivity_stopping.py bounds what a model error there does
 to observables. This test pins the harness's physics on a small stopped-
 track batch: energy conservation makes the total collected charge nearly
 invariant under a dE/dx scaling, while the track RANGE (tb span) moves

@@ -1,9 +1,8 @@
-"""Microbench the native per-event HDF5 write path — the measured floor.
+"""Microbench the native per-event HDF5 write path.
 
-Round-4 warmpost attribution (BASELINE.md): on a warm-page epoch the
-writer child spends ~2.4 ms/event of pure CPU in `write_batch_native`
-(2 dataset creates + 6 attrs + 2 writes per event, old-format storage)
-— 48.8 s of the 64.8 s bench cycle at 20k events. This tool times
+Once pages are warm, the writer child's per-event CPU goes to
+`write_batch_native` (2 dataset creates + 6 attrs + 2 writes per event,
+old-format storage). This tool times
 `sio_h5_write_events` directly (no child process, no device) for the
 A/B that matters:
 
@@ -11,9 +10,8 @@ A/B that matters:
   latest   — ATTPC_H5_LATEST=1: 1.8-format (dense attrs, new object
              headers, fractal-heap links), content h5py-identical
 
-Interleave arms (epoch-fault discipline, CLAUDE.md) and verify the
-latest-format file reads back identically through h5py. Run it ALONE on
-the host core (never next to a TPU job). Env: MB_EVENTS (default 4000),
+Interleave arms and verify the latest-format file reads back identically
+through h5py. Run it alone on the host (never next to a device job). Env: MB_EVENTS (default 4000),
 MB_ROWS (mean rows/event, default 3100), MB_REPS (default 3),
 MB_OUTDIR (default /dev/shm).
 """

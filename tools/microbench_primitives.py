@@ -1,13 +1,18 @@
 """Microbenchmarks of the candidate merge primitives on the local device:
 sort, scatter-add, scatter-max, cumsum/nonzero at engine-relevant sizes."""
 
+import os
+import sys
 import time
 
-import jax
-import jax.numpy as jnp
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2)
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from attpc_engine_tpu.utils.compile_cache import configure_compile_cache  # noqa: E402
+
+configure_compile_cache()
 
 
 def timeit(label, fn, n=5):

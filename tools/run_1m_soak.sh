@@ -2,20 +2,19 @@
 # 1M-event production soak (BASELINE ladder config 5) with bounded disk
 # use: the full Spyral HDF5 output is written through the normal writer
 # path, each completed run file is size-verified and then RECYCLED so the
-# retained set stays at 3 files (~3.3 GB) — this dev box has 126 GB of
-# tmpfs against ~221 GB of 1M-event output.
+# retained set stays at 3 files (~3.3 GB) of the ~221 GB of 1M-event
+# output.
 #
 # Pruned files are MOVED into clouds/.recycle instead of unlinked: the
 # writer child renames one onto each new run file's path and overwrites
 # it in place through the in-memory HDF5 image path (no O_TRUNC), so the
-# file's already-faulted pages stay warm instead of paying this VM's
-# 8-35 us/page first-touch fault tax on every fresh page (BASELINE.md
-# "page-fault tax" — roughly half the round-3 1M-run wall time).
+# file's already-faulted pages stay warm instead of paying a first-touch
+# page fault on every fresh page.
 #
 # Usage: tools/run_1m_soak.sh [outdir]   (default /dev/shm/soak1m)
 # Results land in $outdir/clouds (last 3 run files + manifests) and the
-# bench JSON line on stdout. Round-3 recorded: 347.8 ev/s sustained,
-# zero mid-run recompiles, flat writer-child RSS (BASELINE.md).
+# bench JSON line on stdout. Needs a GPU (bench.py refuses to run
+# without one).
 set -u
 OUT=${1:-/dev/shm/soak1m}
 mkdir -p "$OUT/clouds/.recycle"

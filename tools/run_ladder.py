@@ -6,11 +6,7 @@ scale with LADDER_SCALE (default 1.0; use a small value for CPU smoke
 tests). Writes everything under LADDER_OUTDIR (default /dev/shm).
 
 LADDER_CONFIGS (default "1,2,4") selects which rungs run, so each rung
-can be its own timeout-wrapped process: the round-4 chain ran all rungs
-in ONE process, which hung somewhere in config 3/4 and orphaned the
-status tag that wedged both driver artifacts (VERDICT r4). Use
-tools/run_ladder_r5.sh to run rungs as separately-killable process
-groups.
+can be its own timeout-wrapped process.
 
 Configs (BASELINE.json):
 1. Single-step two-body kinematics only: 16O(d,p)17O at 10 MeV/u,
@@ -52,12 +48,9 @@ def main() -> None:
     shutil.rmtree(base, ignore_errors=True)
     base.mkdir(parents=True)
 
-    import jax
+    from attpc_engine_tpu.utils.compile_cache import configure_compile_cache
 
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.environ.get("BENCH_CACHE_DIR", "/root/.cache/jax_comp"),
-    )
+    configure_compile_cache()
 
     from attpc_engine_tpu import nuclear_map
     from attpc_engine_tpu.nuclear import GasTarget

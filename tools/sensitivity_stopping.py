@@ -1,4 +1,4 @@
-"""Bragg-region stopping-power sensitivity harness (VERDICT r3 task 4).
+"""Bragg-region stopping-power sensitivity harness.
 
 The in-house stopping model is anchored to external references above
 ~1 MeV/u (protons <=3.5% of PSTAR, alphas +3.8% of ASTAR CSDA, carbon
@@ -19,8 +19,7 @@ event batch (same seed, same kinematics), and reports the shift in:
 Env: SENS_EVENTS (64), SENS_STEPS (4000), SENS_FACTORS
 ("0.9,0.95,1.05,1.1"), SENS_CUT_MEV_PER_U (1.0), SENS_SEED (7).
 Prints one JSON line per factor with relative shifts vs factor 1.0.
-CPU-runnable (tiny shapes); serialize with other TPU scripts if run on
-the TPU backend.
+CPU-runnable (tiny shapes); run it alone when it runs on a GPU.
 """
 
 from __future__ import annotations
